@@ -1,9 +1,10 @@
-// quadruped_rt — native host runtime for the TPU controller.
+// quadruped_rt — native host runtime for the jitted JAX controller.
 //
 // The reference implements its whole controller in C++ behind a 6-function
 // C ABI loaded via ctypes (reference src/GaitCtrller.h:63-99,
-// scripts/walking_simulation.py:70-79). Here the *compute* lives on the TPU
-// (JAX); this library provides the native runtime around it:
+// scripts/walking_simulation.py:70-79). Here the *compute* runs on the
+// accelerator through JAX; this library provides the native runtime around
+// it:
 //
 //  * the same C ABI (init_controller / pre_work / set_gait_type /
 //    set_robot_mode / set_robot_vel / torque_calculator) so a user of the
@@ -19,7 +20,7 @@
 //
 // The controller computation is injected as a callback
 // (quadruped_rt_register_compute) by the Python host, which wraps the jitted
-// TPU step. Everything here is plain C++17 + pthreads, no external deps.
+// controller step. Everything here is plain C++17 + pthreads, no external deps.
 
 #include <atomic>
 #include <cmath>
@@ -163,7 +164,7 @@ struct Runtime {
         case 1: robot_mode = c.ivalue; break;
         case 2:
           // the reference's +-0.03 deadband (GaitCtrller.cpp:75-93) is
-          // applied inside the TPU controller; pass through raw
+          // applied inside the jitted controller; pass through raw
           std::memcpy(vel, c.vec, sizeof(vel));
           break;
       }

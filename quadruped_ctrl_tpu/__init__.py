@@ -1,6 +1,6 @@
-"""quadruped_ctrl_tpu — a TPU-native quadruped locomotion control framework.
+"""quadruped_ctrl_tpu — a batched JAX quadruped locomotion control framework.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 Derek-TH-Wang/quadruped_ctrl (MIT Mini-Cheetah ConvexMPC locomotion stack):
 
 * single-rigid-body convex MPC over ground reaction forces (condensed dense

@@ -125,77 +125,27 @@ class SolverConfig:
                                   # identical (0.044 N worst); at 2 rounds a
                                   # random-scenario pipeline case misses the
                                   # oracle by 2.4 N (wrong active set), so 3
-                                  # is the floor (was 4; ~+15% cold
-                                  # throughput, all oracle/golden gates pass)
+                                  # is the floor (was 4; all oracle/golden
+                                  # gates pass at 3)
     rho_adapt: int = 1            # OSQP-style adaptive-rho events inside the
                                   # iterate phase: the iterations are split
                                   # into rho_adapt+1 equal segments, and at
                                   # each boundary rho is rescaled per problem
                                   # by the clipped sqrt of the scaled
                                   # primal/dual residual ratio and the KKT
-                                  # system refactorized (cheap: NS is ~3% of
-                                  # an iterate phase; per-scenario paths warm
-                                  # start from the previous inverse)
+                                  # system refactorized (per-scenario paths
+                                  # warm start from the previous inverse)
     rho_adapt_clip_lo: float = 0.1
     rho_adapt_clip_hi: float = 10.0
-    ns_iters: int = 25            # Newton-Schulz iterations, cold start
-    ns_warm_iters: int = 25       # NS iterations when warm-started (the
-                                  # active set changes between polish rounds
-                                  # invalidate warm starts more often than not)
-    # Pallas scaled mixed-precision NS schedule (ops/ns_inverse.py):
-    # scaled bf16x3 iterations, quadratic bf16x3, HIGHEST-precision tail,
-    # and the worst-case spectrum lower bound the mu schedule assumes.
-    ns_scaled_iters: int = 9
-    ns_quad_iters: int = 2
-    ns_hi_iters: int = 1          # HIGHEST tail: measured in interpret mode,
-                                  # a second HIGHEST squaring does not move
-                                  # the residual floor (1.6e-4 at cond 1e4,
-                                  # 1.2e-3 at 1e5 — limited by the bf16x3
-                                  # phases), and the tail is 6 MXU passes per
-                                  # iteration vs 3; one iteration saves ~13%
-                                  # of every factorization. Downstream solves
-                                  # carry iterative refinement (error ~r^3).
-    ns_a0: float = 1e-5
-    # Short schedule for the ADMM-phase factorizations only (cold + adaptive
-    # rho): with rho=30 on the force-normalized problem the Jacobi-scaled
-    # iterate-phase K is superbly conditioned — measured worst cond 14 at
-    # rho x1 and 213 at the adaptive clip floor (rho x0.1) over the hard
-    # battery — so 6 scaled iterations from a0=5e-4 (~10x margin, verified
-    # to the refinement floor at cond 2e3 in test_pallas_kernels) reach the
-    # quadratic phase. Polish-round K (w_act=1e4 on the active set) can hit
-    # cond ~1e5+ and keeps the full ns_scaled_iters/ns_a0 schedule above
-    # (its solves also carry iterative refinement).
-    ns_admm_a0: float = 5e-4
-    ns_admm_scaled_iters: int = 6
-    # Schur split for ADMM-grade factorizations of 128 < n <= 160 systems
-    # (the h=16 ms=3 midband's 144-var tile): invert the 128x128 leading
-    # block in the 128 lane tile, the tiny Schur complement in plain XLA,
-    # assemble, and scrub one NS iteration — 2.37x per factorization vs
-    # the 256-tile kernel at equal-or-better residual for the cond<=213
-    # ADMM systems above (measured: experiments/SCHUR_PROBE_r05.json;
-    # algorithm + accuracy contract: ops/ns_inverse.py
-    # ns_inverse_schur_scaled). Net bench effect +8.1% on the midband
-    # lane; at n=192 the forgone fused in-kernel K-build outweighs the
-    # smaller 1.45x factorization gain (measured -2%), hence the 160
-    # cutoff in solver/admm.py build_solver. Never applied to polish-round
-    # factorizations (cond ~1e5+ breaks the f32 Schur assembly).
-    ns_schur_split: bool = True
-    # Warm-started NS kernel parameters (ops/ns_inverse.py:
-    # ns_inverse_pallas_warm). NOT on any production path: Mosaic executes
-    # both sides of a per-system conditional, so the guarded warm kernel
-    # measured SLOWER than cold (see the STATUS note there); the kernel and
-    # these knobs are kept for toolchains where scalar branches skip work.
-    ns_warm_quad: int = 3
-    ns_warm_hi: int = 1
-    ns_warm_guard: float = 0.5
+    ns_iters: int = 25            # Newton-Schulz iterations per KKT
+                                  # factorization (HIGHEST precision)
     # Dual-informed polish seeding: rows whose ADMM multiplier magnitude
     # exceeds this (force-normalized units) join the initial active-set
     # estimate alongside the z-proximity rows — a better round-0 active set
     # lets a smaller polish_rounds reach the oracle. 0 disables (z-only).
-    # STATUS: measured NOT to buy back a round (round 5, on v5e,
-    # experiments/polish_rounds_study.py -> POLISH_STUDY_r05.json): at
-    # polish_rounds=2 one pipeline scenario of 126 misses the f64 oracle
-    # by 1.40 N, bitwise-unchanged at tol 0.01/0.03/0.1 — the miss is not
+    # STATUS: measured NOT to buy back a round (polish-rounds study vs
+    # the f64 oracle, recorded in PERF.md): at polish_rounds=2 one
+    # pipeline scenario of 126 misses the f64 oracle by 1.40 N, bitwise-unchanged at tol 0.01/0.03/0.1 — the miss is not
     # a round-0 active-set identification failure (the seeded rows are
     # already in the z-proximity set); it needs the extra refinement
     # round's drop/add pass. polish_rounds=3 stays the floor.
@@ -204,7 +154,7 @@ class SolverConfig:
     # active-set weight flips as a rank-r Woodbury correction of the
     # previous round's inverse (capacitance via a batched pivoted
     # Gauss-Jordan), warm-starting a ns_wb_quad+ns_wb_hi Newton-Schulz
-    # refactorization — 2 iterations instead of the 12-iteration cold
+    # refactorization — 2 iterations instead of the ns_iters cold
     # schedule per round.
     # STATUS: OFF — measured numerically unsound in f32 at the polish
     # conditioning. The correction amplifies the stored inverse's error by
@@ -217,33 +167,23 @@ class SolverConfig:
     # hardware with f64 or extended-precision accumulation; the cold
     # per-round factorization (the JCQP/qpOASES refactorization role,
     # SolverMPC.cpp:530-532) remains the production path.
-    # Round-5 re-examination (VERDICT r04 task 9), under the fixed refine
-    # harness and the fused K-build: STILL negative on both axes — v5e
-    # flagship A/B 79,331 (woodbury) vs 93,507 (cold) solves/s, and step-0
-    # force divergence vs the cold path q99 ~1.0 N / max 13 N (the f32
-    # soundness issue, unchanged). The refine kernel itself is healthy
-    # (test_refine_kernel_from_warm_init) — the Woodbury-built INIT is
-    # what exceeds its convergence region on removal-heavy rounds.
+    # A later re-examination was still negative: slower than the cold
+    # path, and step-0 force divergence vs the cold path q99 ~1.0 N /
+    # max 13 N (the f32 soundness issue, unchanged). The Woodbury-built
+    # INIT is what exceeds the NS convergence region on removal-heavy
+    # rounds.
     polish_woodbury: bool = False
     polish_woodbury_rank: int = 8
-    # Warm-NS schedule for the Woodbury-seeded refactorization (quadratic
-    # bf16x3 + HIGHEST tail; see ops/ns_inverse.py:ns_inverse_pallas_refine).
+    # Newton-Schulz iterations of the Woodbury-seeded refactorization
+    # (their sum is the count; two fields for the former quadratic/tail
+    # split, both HIGHEST now).
     ns_wb_quad: int = 1
     ns_wb_hi: int = 1
     # Active-set penalty weight of the polish solves (force-normalized
     # units). 1e4 pins active rows to ~|dual|/w_act before the AL dual
     # correction; it also sets the polish K's conditioning (~1e5), and
-    # thereby the NS schedule the polish factorizations need.
+    # thereby how far the polish factorizations' NS iteration must go.
     polish_w_act: float = 1e4
-    # ADMM iterate precision split (TPU batched path): all but the last
-    # f32_tail_iters iterations solve against a bf16 copy of the KKT inverse
-    # (halves the HBM stream that dominates the iterate phase); the f32 tail
-    # re-contracts to the exact fixed point before the active set is read.
-    # 50 gives battery accuracy equal-or-better than all-f32 at +17% speed.
-    # (16 was tried in round 3: it trims ~20% of the iterate HBM stream but
-    # grows a knife-edge scenario's fused-vs-XLA disagreement to 8.4 N on
-    # device — not worth 2.8 ms of the 59 ms pipeline.)
-    f32_tail_iters: int = 50
     infty: float = 1e10
     eql_tol: float = 1e-9
     # solver-failure acceptance gate (control path only): max friction-

@@ -1,6 +1,6 @@
 """The full controller step: estimation -> gait -> placement -> MPC -> torques.
 
-This is the TPU-native re-derivation of the reference's per-tick pipeline
+This is the batched-JAX re-derivation of the reference's per-tick pipeline
 (GaitCtrller::TorqueCalculator, GaitCtrller.cpp:95-145, and
 ConvexMPCLocomotion::run, ConvexMPCLocomotion.cpp:116-496) as a single pure
 function over an explicit state pytree. Semantics preserved on purpose:
@@ -36,7 +36,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 from jax import lax
-from flax import struct
+from quadruped_ctrl_tpu.core import struct
 
 from quadruped_ctrl_tpu.config import FrameworkConfig
 from quadruped_ctrl_tpu.control import desired_state, leg_controller, safety
@@ -128,7 +128,7 @@ def run_estimators_batched(cfg: FrameworkConfig, est: EstimatorState,
                            sensors: Sensors, prev_leg: LegData):
     """Batch-explicit `run_estimators`: the orientation/contact parts vmap
     per scenario (cheap vector algebra); the KF runs batch-last through
-    `linear_kf.run_batched` (see its docstring for the TPU layout design)."""
+    `linear_kf.run_batched` (see its docstring for the batch-last layout)."""
     est, ori = jax.vmap(orientation.run)(est, sensors)
     hips = jnp.asarray(cfg.robot.hip_locations())
     xhat, p_cov, position, v_world, v_body = linear_kf.run_batched(
@@ -572,11 +572,9 @@ def mpc_update_batched(cfg: FrameworkConfig, state: FullControllerState, ctx,
     """Batch-axis-explicit `mpc_update` — the closed-loop fast path.
 
     Semantically `jax.vmap(mpc_update)` (identical formation and splitting),
-    but the solves run through `admm.admm_mpc_batched`, whose KKT
-    factorizations dispatch to the VMEM-resident Pallas Newton-Schulz kernel
-    and whose iterate phase streams a bf16 inverse in tile-aligned padded
-    space (solver/admm.py) — the same solver path the flagship throughput
-    bench uses, now driving the scenario engines.
+    but the solves run through `admm.admm_mpc_batched` (solver/admm.py) —
+    the same solver path the flagship throughput bench uses, now driving
+    the scenario engines.
 
     `h_sol` is the static solved horizon; it should be >= every scenario's
     runtime `loco.mpc_h` (cfg.mpc.h_max is always safe; pass 10 for pure
@@ -613,8 +611,7 @@ def mpc_update_batched(cfg: FrameworkConfig, state: FullControllerState, ctx,
     sel4 = jnp.broadcast_to(
         jnp.eye(4, dtype=jnp.float32)[None, None], (bsz, h_sol, 4, 4)
     )
-    # pack=1: per-scenario (12*h_sol)-var systems; on TPU the fused Pallas
-    # formation kernel (ops/formation_pack.py), elsewhere the XLA path
+    # pack=1: per-scenario (12*h_sol)-var systems
     hess, grad = formation.qp_cost_packed(
         cfg.mpc, adt, bdt, x0, traj, step_mask, sel4, pack=1
     )
@@ -664,8 +661,7 @@ def _mpc_update_batched_packed(cfg: FrameworkConfig, state, ctx, h_sol: int,
         pack = 1        # odd batches still compress; they just don't pack
     n_c = 3 * ms * h_sol
     m_c = 5 * ms * h_sol
-    # packed block-diagonal QP cost (on TPU: the fused Pallas formation
-    # kernel, ops/formation_pack.py — no per-scenario Hessians in HBM)
+    # packed block-diagonal QP cost
     kp, gp = formation.qp_cost_packed(
         cfg.mpc, adt, bdt, x0, traj, step_mask, sel, pack
     )

@@ -11,7 +11,7 @@ directly — it is kept for API parity and external consumers.
 from __future__ import annotations
 
 import jax.numpy as jnp
-from flax import struct
+from quadruped_ctrl_tpu.core import struct
 
 
 @struct.dataclass

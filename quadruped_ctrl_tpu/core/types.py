@@ -9,7 +9,7 @@ pure function and batching/sharding/checkpointing are trivial.
 from __future__ import annotations
 
 import jax.numpy as jnp
-from flax import struct
+from quadruped_ctrl_tpu.core import struct
 
 
 @struct.dataclass

@@ -7,13 +7,11 @@ x = [p(3), v(3), p_foot0..3(12)], 28 measurements (4x relative foot position,
 the process/measurement noise.
 
 The innovation solve inverts the (SPD) 28x28 innovation covariance with a
-Jacobi-prescaled scaled-Newton-Schulz iteration (pure batched matmuls) plus
-two iterative-refinement passes, instead of the reference's two LU solves:
-XLA lowers batched LU/Cholesky factorizations to serial scalar loops that
-on TPU dominated the ENTIRE control tick (measured 18 ms of a 29 ms tick at
-batch 4096; the NS path runs the same update in ~1 ms). The refinement
-drives the solve to the f32 floor, so estimator parity vs the reference's
-LU is unchanged (tests/test_estimation.py, golden torque traces).
+Jacobi-prescaled scaled-Newton-Schulz iteration (pure matmuls, no
+data-dependent control flow) plus two iterative-refinement passes, instead
+of the reference's two LU solves. The refinement drives the solve to the
+f32 floor, so estimator parity vs the reference's LU is unchanged
+(tests/test_estimation.py, golden torque traces).
 """
 
 from __future__ import annotations
@@ -23,7 +21,23 @@ import numpy as np
 from jax import lax
 
 from quadruped_ctrl_tpu.config import EstimatorConfig
-from quadruped_ctrl_tpu.ops.ns_inverse import mu_schedule
+
+
+def mu_schedule(a0: float, n_scaled: int):
+    """Scaling factors of the scaled Newton-Schulz interval phase.
+
+    With the spectrum of K X in [a, 1], the step X <- mu X (2I - mu K X),
+    mu = 2/(1+a), maps it to [~4a/(1+a)^2, 1]: the lower bound quadruples
+    per iteration instead of doubling. Starting from a worst-case a0
+    (underestimating it is safe, merely slower), n_scaled fixed factors
+    bring the spectrum to where plain quadratic iterations take over."""
+    mus = []
+    a = a0
+    for _ in range(n_scaled):
+        mu = 2.0 / (1.0 + a)
+        mus.append(mu)
+        a = min(mu * a * (2.0 - mu * a), mu * (2.0 - mu))
+    return mus
 
 
 def _static_mats(cfg: EstimatorConfig):
@@ -112,7 +126,7 @@ def run(
 
     # update (reference uses two LU solves, lines 171-186; here a scaled
     # Newton-Schulz inverse of the Jacobi-prescaled SPD innovation
-    # covariance — MXU matmuls instead of XLA's serial factorization loops)
+    # covariance — matmuls instead of a data-dependent factorization)
     ey = y - C @ xhat
     s = C @ pm @ C.T + jnp.diag(r_diag)
     d = lax.rsqrt(jnp.maximum(jnp.diagonal(s), 1e-30))
@@ -181,14 +195,14 @@ def run_batched(
 ):
     """Batch-explicit KF step, identical estimate to `run` per scenario.
 
-    TPU redesign of the hot closed-loop path (SWEEP_r03: the (B,18,18) /
-    (B,28,28) covariance matmul chains pad their 18/28-wide minor dims to
-    128 lanes — ~7-10x HBM bloat per op — and the 28x28 innovation inverse
-    costs 36 batched matmuls per tick). Two structural changes, both exact:
+    Redesign of the hot closed-loop path: per scenario, the (18,18) /
+    (28,28) covariance matmul chains have tiny minor dims, and the 28x28
+    innovation inverse costs 36 batched matmuls per tick. Two structural
+    changes, both exact:
 
-    * the covariance lives BATCH-LAST, (18,18,B): the batch rides the lane
-      dimension, so every covariance op is a full-width vector op with ~1.3x
-      padding instead of ~7x;
+    * the covariance lives BATCH-LAST, (18,18,B): the batch is the minor
+      (contiguous) dimension, so every covariance op is a full-width
+      elementwise vector op;
     * the joint 28-measurement update is processed as 28 SEQUENTIAL scalar
       updates — textbook-exact for the diagonal R this filter has (the
       reference's R0 + trust scaling is diagonal,

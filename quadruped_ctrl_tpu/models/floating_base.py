@@ -1,6 +1,6 @@
 """Floating-base rigid-body dynamics for the Mini-Cheetah (18 DoF).
 
-The TPU-native counterpart of the reference's FloatingBaseModel
+The batched-JAX counterpart of the reference's FloatingBaseModel
 (src/Dynamics/FloatingBaseModel.{cpp,h}, built by Quadruped::buildModel,
 src/Dynamics/Quadruped.cpp:117-206): a fixed 13-body kinematic tree (base +
 4x abad/hip/knee) with the MiniCheetah.h:19-112 CAD inertias, supporting
@@ -11,7 +11,7 @@ src/Dynamics/Quadruped.cpp:117-206): a fixed 13-body kinematic tree (base +
 * world-frame contact Jacobians,
 * forward dynamics qdd = M^-1 (tau - h) (the reference's runABA computes the
   same quantity by a different recursion; here CRBA+RNEA+solve keeps the
-  whole computation batched MXU matmuls with static shapes),
+  whole computation batched matmuls with static shapes),
 * rotor (gearbox) handling EXACTLY as the reference's explicit geared rotor
   bodies (Quadruped.cpp:117-206, MiniCheetah.h:51-109): each rotor's full
   spatial inertia (mass 0.055 kg, axisymmetric about its spin axis) enters
@@ -546,7 +546,7 @@ class MiniCheetahModel:
         """(12,12) inverse operational-space inertia Lambda^-1 = J M^-1 J^T
         over all four foot contact points (3 rows each) — the reference's
         invContactInertia (FloatingBaseModel.cpp:1061-1106), computed as
-        batched MXU matmuls instead of the sparse factor recursion. The
+        batched matmuls instead of the sparse factor recursion. The
         (4,3,3) per-foot blocks are the diagonal; off-diagonal blocks give
         inter-foot coupling."""
         m = self.mass_matrix(q12)

@@ -3,7 +3,7 @@ prediction stacking, and QP cost/constraint assembly.
 
 Re-derivation of the reference's dense path (SolverMPC.cpp:87-125 c2qp,
 :235-254 ct_ss_mats, :296-399 solve_mpc cost assembly, :352-377 friction
-pyramid). Differences by design, for TPU:
+pyramid). Differences by design, for batched static-shape execution:
 
 * the 25x25 matrix exponential is a fixed scaling-and-squaring Taylor series
   (static shapes, no data-dependent control flow, vmap/batch friendly);
@@ -41,7 +41,8 @@ def srb_ct_dynamics(cfg_mpc: MPCConfig, r_feet, yaw, x_drag):
     r_yaw = jnp.array([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]], dtype=dtype)
 
     i_body = jnp.asarray(cfg_mpc.inertia_arr(), dtype=dtype)
-    i_world = r_yaw @ i_body @ r_yaw.T
+    i_world = jnp.matmul(jnp.matmul(r_yaw, i_body, precision=_HI), r_yaw.T,
+                         precision=_HI)
     i_inv = jnp.linalg.inv(i_world)
 
     a = jnp.zeros((13, 13), dtype=dtype)
@@ -290,9 +291,9 @@ def srb_discrete(cfg_mpc: MPCConfig, r_feet, yaw, x_drag, dt):
     base[3, 9] = base[4, 10] = base[5, 11] = dt
     base[11, 12] = dt
     base[5, 12] = 0.5 * dt * dt
-    # scatter-free assembly: .at[...].set on a (B,13,13) lowers to batched
-    # dynamic-update-slice (~0.4 ms EACH at B=4096, profiled); a pad + a
-    # static-mask multiply fuse into one elementwise pass instead
+    # scatter-free assembly: .at[...].set on a (B,13,13) lowers to one
+    # batched dynamic-update-slice per entry; a pad + a static-mask
+    # multiply fuse into one elementwise pass instead
     xd_mask = np.zeros((13, 13), dtype=np.float32)
     xd_mask[11, 9] = dt
     xd_mask[5, 9] = 0.5 * dt * dt
@@ -345,8 +346,9 @@ def stance_selectors(gait_table, max_stance: int):
     )                                                         # (...,h,4)
     oh = jax.nn.one_hot(rank, 4, dtype=dtype)                 # (...,h,4,slot)
     sel = jnp.swapaxes(oh, -1, -2)[..., :max_stance, :]       # (...,h,ms,4)
-    foot_idx = jnp.einsum("...sf,f->...s", sel, f).astype(jnp.int32)
-    gait_red = jnp.einsum("...sf,...f->...s", sel, g)
+    foot_idx = jnp.einsum("...sf,f->...s", sel, f,
+                          precision=_HI).astype(jnp.int32)
+    gait_red = jnp.einsum("...sf,...f->...s", sel, g, precision=_HI)
     return foot_idx, gait_red, sel
 
 
@@ -386,10 +388,10 @@ def qp_cost_compressed_nil_sel(
     sqrt_w = jnp.sqrt(w)
     sqrt_mask = jnp.sqrt(step_mask)                           # (...,h)
     bfam_s = bfam * sqrt_w[:, None]                           # scale p rows
-    # layout-conscious Toeplitz combine (profiled): keep the (c,j,z)=n_c
-    # axis TRAILING everywhere — intermediates with a 3- or 6-wide minor
-    # dim pad to 128 lanes and every einsum batch-dim lowering inserts a
-    # full relayout copy. u lands as (...,3,13,n_c); the phi combine is a
+    # layout-conscious Toeplitz combine: keep the (c,j,z)=n_c axis
+    # TRAILING everywhere — intermediates with a 3- or 6-wide minor dim
+    # waste most of each vector load, and every einsum batch-dim lowering
+    # inserts a full relayout copy. u lands as (...,3,13,n_c); the phi combine is a
     # broadcast multiply-reduce over m=3 (static phi expanded over (j,z)),
     # which XLA fuses into one pass — no dot_general batch-dim transposes.
     u = jnp.einsum(
@@ -420,84 +422,19 @@ def qp_cost_compressed_nil_sel(
     return hess, grad
 
 
-def packed_qp_operands(cfg_mpc: MPCConfig, adt, bdt, x0, x_d, step_mask, sel):
-    """Per-scenario operands of the fused Pallas formation kernel
-    (ops/formation_pack.py): the sqrt(w)-scaled nilpotent B-family, the
-    stance-selection matrix (kron I3), the weighted reference residual, and
-    sqrt(step_mask). All tiny (O(B * 13*12) floats) — the expensive bq
-    expansion and Gram happen inside the kernel's VMEM."""
-    dtype = adt.dtype
-    b = x_d.shape[0]
-    h = x_d.shape[-2]
-    ms = sel.shape[-2]
-    n_c = h * ms * 3
-    eye13 = jnp.eye(13, dtype=dtype)
-    n1 = adt - eye13
-    n2 = jnp.einsum("...ij,...jk->...ik", n1, n1, precision=_HI)
-    bfam = jnp.stack(
-        [bdt,
-         jnp.einsum("...ij,...jk->...ik", n1, bdt, precision=_HI),
-         jnp.einsum("...ij,...jk->...ik", n2, bdt, precision=_HI)],
-        axis=-3,
-    )                                                         # (B,3,13,12)
-    w = jnp.concatenate(
-        [jnp.asarray(cfg_mpc.weights_arr(), dtype=dtype),
-         jnp.zeros(1, dtype=dtype)]
-    )
-    sqrt_w = jnp.sqrt(w)
-    bfam_s = bfam * sqrt_w[:, None]
-    # smat[(f,z),(c,j,z')] = sel[c,j,f] * (z==z'): (B,4,h,ms) x I3
-    sel_t = jnp.moveaxis(sel, -1, -3)                         # (B,4,h,ms)
-    eye3 = jnp.eye(3, dtype=dtype)
-    smat = (
-        sel_t[:, :, None, :, :, None] * eye3[None, :, None, None, :]
-    ).reshape(b, 12, n_c)
-    # weighted residual rows, (x,p) order
-    nx0 = jnp.einsum("...ij,...j->...i", n1, x0, precision=_HI)
-    n2x0 = jnp.einsum("...ij,...j->...i", n2, x0, precision=_HI)
-    k = jnp.arange(1, h + 1, dtype=dtype)[:, None]
-    ax0 = (x0[..., None, :] + k * nx0[..., None, :]
-           + (0.5 * k * (k - 1.0)) * n2x0[..., None, :])      # (B,h,13)
-    smask = jnp.sqrt(step_mask)
-    r = ((ax0 - x_d) * (smask[..., :, None] * sqrt_w)).reshape(b, h * 13)
-    return bfam_s, smat, r, smask
-
-
 def qp_cost_packed(
     cfg_mpc: MPCConfig, adt, bdt, x0, x_d, step_mask, sel, pack: int,
-    use_pallas: bool | None = None, interpret: bool = False,
 ):
     """Block-diagonally PACKED QP cost: `pack` scenarios per system.
 
     Returns (hess (B/pack, pack*n_c, pack*n_c), grad (B/pack, pack*n_c)) —
-    the layout `admm.admm_mpc_batched(..., pack=pack)` consumes. On TPU the
-    whole formation runs in the fused Pallas kernel
-    (ops/formation_pack.form_packed_pallas); elsewhere it is
-    `qp_cost_compressed_nil_sel` + block-diagonal embedding (the
-    differential-test reference)."""
-    if use_pallas is None:
-        # the kernel lowers pltpu.VMEM blocks — TPU only (a GPU backend
-        # would fail at lowering, and CPU runs the XLA reference path)
-        use_pallas = jax.default_backend() == "tpu"
+    the layout `admm.admm_mpc_batched(..., pack=pack)` consumes:
+    `qp_cost_compressed_nil_sel` per scenario, embedded block-diagonally."""
     b = x_d.shape[0]
     h = x_d.shape[-2]
     ms = sel.shape[-2]
     n_c = h * ms * 3
     assert b % pack == 0
-    if pack * n_c > 256:
-        # beyond the kernel's 256 lane tile (e.g. pack=4 at h=16): the XLA
-        # block-diagonal embedding handles any pack size
-        use_pallas = interpret = False
-    if use_pallas or interpret:
-        from quadruped_ctrl_tpu.ops import formation_pack as FP
-
-        bfam_s, smat, r, smask = packed_qp_operands(
-            cfg_mpc, adt, bdt, x0, x_d, step_mask, sel
-        )
-        return FP.form_packed_pallas(
-            bfam_s, smat, r, smask, h, ms, pack, float(cfg_mpc.alpha),
-            interpret=interpret,
-        )
     hess, grad = qp_cost_compressed_nil_sel(
         cfg_mpc, adt, bdt, x0, x_d, step_mask, sel
     )
@@ -552,8 +489,8 @@ def qp_cost_compressed(
     )
     s_diag = w[None, :] * step_mask[:, None]                    # (h,13)
 
-    # select stance-foot columns as a one-hot contraction (a gather via
-    # take_along_axis is ~25x slower on TPU): (h,h,13,4,3) -> (h,h,13,ms,3)
+    # select stance-foot columns as a one-hot contraction (no gather):
+    # (h,h,13,4,3) -> (h,h,13,ms,3)
     b5 = b_qp.reshape(h, h, 13, 4, 3)
     sel = jax.nn.one_hot(foot_idx, 4, dtype=dtype)              # (h,ms,4)
     b_red = jnp.einsum("xsifz,sjf->xsijz", b5, sel, precision=_HI)

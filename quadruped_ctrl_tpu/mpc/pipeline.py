@@ -12,7 +12,7 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from quadruped_ctrl_tpu.core import struct
 
 from quadruped_ctrl_tpu.config import FrameworkConfig
 from quadruped_ctrl_tpu.mpc import formation
@@ -100,6 +100,22 @@ def random_inputs(key, batch: int, h: int, trot: bool = True) -> MPCInputs:
     )
 
 
+def walking_band_gait(h: int, v_band: float = 0.3):
+    """(h,4) contact table of the aio walking->trot morph band
+    (0.2 < v <= 0.4, ConvexMPCLocomotion.cpp:174-233): a 3-stance gait, so
+    `max_stance=3` compresses it exactly (every step has 1..3 stance feet)."""
+    import numpy as np
+
+    o2 = int(np.floor(h * 1.25 * v_band))
+    o3 = int(np.floor(h * (1.25 * v_band + 0.5)))
+    dwt = int(np.floor(h * (-1.25 * v_band + 1.0)))
+    offs = np.array([0, h // 2, o2, o3])
+    steps = np.arange(h)[:, None]
+    tbl = (((steps - offs[None, :]) % h) < dwt).astype(np.float32)
+    assert tbl.sum(axis=1).max() <= 3 and (tbl.sum(1) >= 1).all()
+    return tbl
+
+
 def solve_compressed(cfg: FrameworkConfig, inp: MPCInputs, max_stance: int,
                      h: int | None = None, iterations: int | None = None,
                      polish_rounds: int | None = None):
@@ -136,13 +152,12 @@ def solve_packed_batch(cfg: FrameworkConfig, inputs: MPCInputs,
                        max_stance: int = 2, pack: int = 2,
                        h: int | None = None, iterations: int | None = None,
                        polish_rounds: int | None = None,
-                       use_fused: bool | None = None,
                        form_only: bool = False):
     """Stance-compressed + pair-packed batched solve.
 
     Two (or `pack`) compressed scenarios are packed into one block-diagonal
     KKT system: for a trot, 2 scenarios x 60 vars = one 120x120 system — the
-    same MXU-friendly shape as the uncompressed problem at HALF the system
+    same matmul shape as the uncompressed problem at HALF the system
     count, and exactly equivalent (block-diagonal inverses don't mix; the
     packed problem is literally the two QPs side by side, steps relabeled).
     Returns forces (B, h, 4, 3) with zeros on swing feet.
@@ -153,8 +168,8 @@ def solve_packed_batch(cfg: FrameworkConfig, inputs: MPCInputs,
 
     # batch-explicit formation: closed-form sparse dynamics, sortless stance
     # selection, sqrt-S-folded transpose-free cost (formation.srb_discrete /
-    # stance_selectors / qp_cost_compressed_nil_sel) — measured ~2x the
-    # vmapped per-scenario path, which spent the phase in tiny scatter ops
+    # stance_selectors / qp_cost_compressed_nil_sel) in place of the
+    # vmapped per-scenario formation and its many tiny scatter ops
     adt, bdt = formation.srb_discrete(
         cfg.mpc, inputs.r_feet, inputs.rpy[:, 2], inputs.x_drag, cfg.dt_mpc
     )
@@ -168,32 +183,7 @@ def solve_packed_batch(cfg: FrameworkConfig, inputs: MPCInputs,
     step_mask = jnp.ones((b, h), jnp.float32)
     n_c = 3 * max_stance * h
 
-    # The fused single-kernel solver (ops/fused_admm.py) is opt-in: it is
-    # differential-tested correct, but its per-system sequential iterate
-    # phase loses to the XLA batched path on v5e (13k vs 31k solves/s) —
-    # per-system 128-dim matvecs cannot keep the MXU busy.
-    if use_fused is None:
-        use_fused = False
-    if use_fused:
-        # the fused kernel's in-kernel polish best-iterate selection and
-        # violation reductions run over the WHOLE system, so packed
-        # scenarios would contaminate each other's polish choice — solve
-        # each scenario in its own (padded) tile instead of packing
-        hess, grad = formation.qp_cost_compressed_nil_sel(
-            cfg.mpc, adt, bdt, x0, inputs.traj, step_mask, sel
-        )
-        xp = admm.admm_mpc_fused(
-            cfg.solver, cfg.mpc, hess, grad, gait_red,
-            iterations=iterations, polish_rounds=polish_rounds,
-        )
-        x_red = xp.reshape(b, n_c)
-        return jax.vmap(lambda xr, fi: formation.scatter_forces(xr, fi, h))(
-            x_red, foot_idx
-        )
-
-    # packed block-diagonal QP cost: on TPU the fused Pallas formation
-    # kernel (ops/formation_pack.py) emits (B/pack) KKT-ready systems
-    # without materializing bq or the per-scenario Hessians in HBM
+    # packed block-diagonal QP cost
     kp, gp = formation.qp_cost_packed(
         cfg.mpc, adt, bdt, x0, inputs.traj, step_mask, sel, pack
     )

@@ -8,7 +8,7 @@ constraints, solved by OSQP/JCQP from sparse triples. Its niche is long
 horizons where the condensed form's O(h^2) workspace explodes
 (SURVEY.md §5 "long-context").
 
-TPU-native re-design: the same stage-wise QP with variables
+Batched re-design: the same stage-wise QP with variables
 z = [x_1..x_h (12h), u_0..u_{h-1} (12h)] (force part normalized by f_max),
 dynamics equalities enforced through the generic ADMM's equality-row
 handling (rho * rho_equality_scale), friction pyramid on the forces. The

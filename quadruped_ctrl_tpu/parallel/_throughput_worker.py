@@ -2,7 +2,7 @@
 
 Each process owns `devs_per_proc` virtual CPU devices; all processes run the
 same sharded fast-path MPC program over the global mesh (cross-process
-collectives via Gloo — the CPU harness for the multi-host/DCN axis).
+collectives via Gloo — the CPU harness for the multi-host axis).
 Process 0 writes {"solves_per_s": ...} to the output path.
 
 Usage: python -m quadruped_ctrl_tpu.parallel._throughput_worker \

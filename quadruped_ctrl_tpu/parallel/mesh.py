@@ -1,9 +1,9 @@
-"""Device mesh + sharding helpers: scenario data-parallelism over ICI/DCN.
+"""Device mesh + sharding helpers: scenario data-parallelism across devices.
 
 The reference has no distributed anything (SURVEY.md §2.8); these are the
-new TPU-native scale-out components: a ("dp", "mp") mesh, batch sharding of
-the MPC/scenario pipelines via shard_map, and psum'd metric reductions (the
-XLA-collective replacement for what NCCL would be elsewhere).
+new scale-out components: a ("dp", "mp") mesh, batch sharding of the
+MPC/scenario pipelines via shard_map, and psum'd metric reductions (XLA
+collectives; on GPUs they lower to NCCL).
 """
 
 from __future__ import annotations
@@ -46,10 +46,10 @@ def sharded_mpc_solve(cfg: FrameworkConfig, mesh: Mesh, h: int,
     """Returns a jitted function: sharded MPCInputs batch -> (forces, stats).
 
     Forces stay sharded; stats (mean |f|, count) are psum'd over the mesh —
-    the cross-shard reduction exercising ICI collectives. With `packed`
+    the cross-shard reduction exercising the collectives. With `packed`
     (default) each shard solves through the stance-compressed pair-packed
-    fast path (pipeline.solve_packed_batch -> admm_mpc_batched -> Pallas on
-    TPU); gait tables must then have <= max_stance stance feet per step
+    fast path (pipeline.solve_packed_batch -> admm_mpc_batched); gait
+    tables must then have <= max_stance stance feet per step
     (raise it for non-trot gaits), and odd per-shard batches fall back to
     the per-scenario vmap path (the differential reference, any gait).
     """

@@ -1,11 +1,10 @@
 """Multi-host runtime + scaling-efficiency reporting.
 
 The reference has no distributed execution at all (SURVEY.md §2.8); these
-are the pod-scale components: `jax.distributed` bring-up for same-program
+are the multi-host components: `jax.distributed` bring-up for same-program
 SPMD across hosts, and a scaling report measuring batched-MPC throughput at
-increasing device counts (the ">=85% efficiency at 2 hosts" BASELINE.md
-metric). Collectives ride XLA (psum over ICI within a slice, DCN across
-hosts) — the TPU-native replacement for NCCL/MPI.
+increasing device counts. Collectives ride XLA (psum within a host and
+across hosts).
 """
 
 from __future__ import annotations
@@ -26,8 +25,8 @@ def initialize_distributed(coordinator_address: str | None = None,
                            process_id: int | None = None):
     """Bring up multi-host JAX (no-op for single-process runs).
 
-    On TPU pods the three arguments are auto-detected from the environment;
-    pass them explicitly for CPU/GPU clusters.
+    Pass all three arguments explicitly (e.g. coordinator
+    "localhost:<port>"); nothing here auto-detects a cluster.
     """
     if num_processes is None and coordinator_address is None:
         return False  # single process
@@ -71,7 +70,9 @@ def multiprocess_scaling(num_processes: int = 2, devs_per_proc: int = 2,
     """N-process weak-scaling efficiency via real `jax.distributed` CPU
     processes (Gloo collectives — the cluster-free multi-host harness,
     SURVEY.md §4 item 5). Launches 1-process and N-process runs of the same
-    sharded fast-path program and reports throughput + efficiency."""
+    sharded fast-path program and reports throughput + efficiency. CPU
+    only: every worker pins the CPU backend, so the report's `backend` is
+    always "cpu"."""
     import json
     import os
     import socket
@@ -88,7 +89,7 @@ def multiprocess_scaling(num_processes: int = 2, devs_per_proc: int = 2,
         port = s.getsockname()[1]
         s.close()
         with tempfile.TemporaryDirectory() as td:
-            out = os.path.join(td, "tput.json")
+            out = os.path.join(td, "rate.json")
             procs = []
             for pid in range(nproc):
                 env = dict(os.environ)
@@ -116,13 +117,14 @@ def multiprocess_scaling(num_processes: int = 2, devs_per_proc: int = 2,
     # Same GLOBAL mesh (num_processes * devs_per_proc devices) and same
     # global batch both times; only the process split differs. On this
     # shared-core CPU harness that isolates the cross-process collective
-    # overhead (the DCN-role cost), which is the axis virtual devices CAN
+    # overhead (the cross-host cost), which is the axis virtual devices CAN
     # measure — raw weak scaling cannot be (all virtual devices share the
     # same physical cores).
     t1, s1 = run_group(1, num_processes * devs_per_proc)
     tn, sn = run_group(num_processes, devs_per_proc)
     eff = tn / t1
     rep = {
+        "backend": "cpu",
         "processes": num_processes,
         "devices_per_process": devs_per_proc,
         "global_devices": num_processes * devs_per_proc,
@@ -152,9 +154,8 @@ def scaling_report(cfg: FrameworkConfig, device_counts=None,
       compute capacity does not grow with n and this is the measurable
       axis).
     * `weak_efficiency` — throughput(n) / (n * throughput(1)) at fixed
-      per-device batch: the BASELINE.md ">=85% at 2 hosts" number. Only
-      meaningful when devices are real (a pod slice); reported for
-      completeness and labeled by `backend`.
+      per-device batch. Only meaningful when devices are real cards;
+      reported for completeness and labeled by `backend`.
 
     Statistics: every throughput is the MEDIAN of `reps` independent
     timings, each row carries the relative interquartile spread of its
@@ -168,22 +169,22 @@ def scaling_report(cfg: FrameworkConfig, device_counts=None,
     base = None
     rows = []
     for n in device_counts:
-        tput, spread = _median_spread(
+        rate, spread = _median_spread(
             _throughput(cfg, n, per_device_batch, h, reps))
         if n == 1:
-            tput_1dev, spread_1 = tput, spread
+            rate_1dev, spread_1 = rate, spread
         else:
-            tput_1dev, spread_1 = _median_spread(
+            rate_1dev, spread_1 = _median_spread(
                 _throughput(cfg, 1, n * per_device_batch, h, reps))
         if base is None:
-            base = tput
-        sh_eff = tput / tput_1dev
+            base = rate
+        sh_eff = rate / rate_1dev
         row = {
             "devices": n,
-            "solves_per_s": round(tput, 1),
+            "solves_per_s": round(rate, 1),
             "rel_iqr": round(max(spread, spread_1), 4),
             "sharding_efficiency": round(sh_eff, 4),
-            "weak_efficiency": round(tput / (base * n), 4),
+            "weak_efficiency": round(rate / (base * n), 4),
         }
         if sh_eff > 1.05:
             row["noise"] = True

@@ -4,7 +4,7 @@ Gives reference users the exact ctypes surface they already drive
 (init_controller / pre_work / set_gait_type / set_robot_mode /
 set_robot_vel / torque_calculator returning a StructPointer with eff[12] —
 reference scripts/walking_simulation.py:26-28, 70-79, 358-381), backed by
-the jitted TPU controller through a registered C callback. Async commands
+the jitted controller through a registered C callback. Async commands
 flow through the library's lock-free SPSC queue instead of the reference's
 unguarded cross-thread mutation.
 """
@@ -67,7 +67,7 @@ def load() -> ctypes.CDLL:
 
 
 class NativeController:
-    """The reference FFI surface, computed by the TPU controller.
+    """The reference FFI surface, computed by the jitted controller.
 
     Usage (mirrors walking_simulation.py's loop):
         nc = NativeController(cfg)
@@ -113,6 +113,9 @@ class NativeController:
         self._step_fn = _step
         self._pre_fn = _pre
         self._jnp = jnp
+        # an exception inside the C callback cannot cross the C frames;
+        # it is kept here and re-raised by the Python-side ABI wrappers
+        self.callback_error = None
 
         def compute(imu_p, leg_p, gait, mode, vel_p, tau_p):
             try:
@@ -132,7 +135,8 @@ class NativeController:
                     tau_p, out.ctypes.data, 12 * ctypes.sizeof(ctypes.c_double)
                 )
                 return 0
-            except Exception:
+            except Exception as e:  # noqa: BLE001 — surfaced by _check
+                self.callback_error = e
                 return 1
 
         self._compute_cb = COMPUTE_FN(compute)  # keep a reference alive
@@ -146,8 +150,14 @@ class NativeController:
 
         self._state = ctrl.init_state(self.cfg)
 
+    def _check(self):
+        err, self.callback_error = self.callback_error, None
+        if err is not None:
+            raise RuntimeError("controller callback failed") from err
+
     def pre_work(self, imu, leg):
         self.lib.pre_work(_darr(imu, 10), _darr(leg, 24))
+        self._check()
 
     def set_gait_type(self, gait: int):
         self.lib.set_gait_type(ctypes.c_int(gait))
@@ -160,6 +170,7 @@ class NativeController:
 
     def torque_calculator(self, imu, leg) -> np.ndarray:
         res = self.lib.torque_calculator(_darr(imu, 10), _darr(leg, 24))
+        self._check()
         return np.array(res.contents.eff[:], dtype=np.float64)
 
     # ------------------------------------------------- observability ----

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from quadruped_ctrl_tpu.core import struct
 
 from quadruped_ctrl_tpu.config import FrameworkConfig
 from quadruped_ctrl_tpu.core import rotations as rot

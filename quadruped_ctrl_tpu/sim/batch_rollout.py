@@ -33,8 +33,7 @@ def _mpc_tick_batched(cfg, states, sims, cmds, terrains, h_sol,
                       mpc_iterations, max_stance=None):
     """The every-13th tick with the MPC solve batch-explicit: control_tick
     and leg_commands vmap per lane, while the solve itself runs through
-    `controller.mpc_update_batched` -> `admm.admm_mpc_batched` (Pallas NS
-    factorization + tile-aligned bf16-streamed iterate) — the same fast
+    `controller.mpc_update_batched` -> `admm.admm_mpc_batched` — the same
     solver path as the throughput bench, instead of per-lane `admm_mpc`
     under vmap. With `max_stance` (a valid bound for every scenario's gait
     — see gait.max_simultaneous_stance) the solves additionally run

@@ -2,7 +2,7 @@
 
 The reference runs a 20 Hz thread rendering 80x60 RGB-D from PyBullet and
 back-projecting depth to a world point cloud with a Python double loop
-(walking_simulation.py:246-356, the loop at :311-328). TPU-native
+(walking_simulation.py:246-356, the loop at :311-328). Batched
 re-design: a vectorized sphere-traced depth render of the terrain height
 function — no loops, batched over pixels (and scenarios under vmap) — with
 the same camera geometry: eye on the head, pitched 60 degrees down-forward
@@ -173,7 +173,7 @@ def render_rgb(terrain: Terrain, base_p, base_quat, n_steps: int = 48,
                light=(0.3, 0.2, 0.9), robot=None):
     """(HEIGHT, WIDTH, 3) uint8 RGB image — the reference renders RGB via
     PyBullet getCameraImage (walking_simulation.py:287-299) and publishes
-    mono8 converted from it. TPU-native shading of the sphere-traced hit
+    mono8 converted from it. Vectorized shading of the sphere-traced hit
     points: height-tinted terrain albedo, Lambertian terrain normal
     (finite-difference of the height function) with inverse-distance
     attenuation; sky (no hit) renders light blue; robot self-geometry

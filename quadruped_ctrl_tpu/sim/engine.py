@@ -1,6 +1,6 @@
 """Batched single-rigid-body + point-foot scenario simulator.
 
-The TPU-native replacement for the reference's PyBullet front-end
+The batched replacement for the reference's PyBullet front-end
 (scripts/walking_simulation.py): a pure-function physics step over a pytree
 state, so thousands of (terrain x gait x velocity) scenarios run as one
 vmapped/jitted program. Physics model:
@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from quadruped_ctrl_tpu.core import struct
 
 from quadruped_ctrl_tpu.config import FrameworkConfig
 from quadruped_ctrl_tpu.core import rotations as rot

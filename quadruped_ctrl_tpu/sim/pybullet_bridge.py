@@ -3,8 +3,8 @@
 Mirrors the reference's simulator host (scripts/walking_simulation.py): the
 same URDF, the same reset/stand-up sequence (:170-198), the same per-tick
 sensor synthesis (:521-573) and torque application (:239-244) — but the
-torques come from the TPU controller (directly or through the native FFI
-runtime). PyBullet is not installed in the TPU container; this module
+torques come from this controller (directly or through the native FFI
+runtime). PyBullet is an optional dependency; without it this module
 degrades to a clear ImportError and is exercised wherever pybullet exists.
 
 Usage:
@@ -23,7 +23,7 @@ try:
     import pybullet as pb
     import pybullet_data
     HAVE_PYBULLET = True
-except ImportError:  # pragma: no cover - not available in the TPU container
+except ImportError:  # pragma: no cover - optional dependency
     pb = None
     HAVE_PYBULLET = False
 

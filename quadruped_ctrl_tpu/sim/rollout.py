@@ -90,3 +90,20 @@ def run_session(cfg: FrameworkConfig, terrain: Terrain, cmd: Command,
                 n_ticks: int, mpc_iterations: int | None = None):
     cmds = make_command_sequence(cfg, n_ticks, cmd)
     return rollout(cfg, terrain, cmds, mpc_iterations=mpc_iterations)
+
+
+def make_tick(cfg: FrameworkConfig, terrain: Terrain, cmd: Command):
+    """One jitted closed-loop tick, controller_step + sim_step: the unit a
+    host loop dispatches once per 2 ms tick. Returns
+    step(state, sim) -> (state, sim, tau)."""
+
+    @jax.jit
+    def step(state, sim):
+        sensors = engine.sensors_from_sim(cfg, sim)
+        # mpc_iterations=None -> runtime warm/cold budget selection
+        # (controller.mpc_update), exactly as in deployment
+        state, out = ctrl.controller_step(cfg, state, sensors, cmd)
+        sim = engine.sim_step(cfg, sim, out, terrain)
+        return state, sim, out.tau
+
+    return step

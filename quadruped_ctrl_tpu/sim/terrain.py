@@ -16,7 +16,7 @@ import numpy as np
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from quadruped_ctrl_tpu.core import struct
 
 TERRAIN_PLANE = 0
 TERRAIN_RANDOM = 1      # procedural heightfield (reference "random1")

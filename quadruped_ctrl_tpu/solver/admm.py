@@ -8,24 +8,26 @@ JCQP spec (reference src/JCQP/QpProblem.cpp:276-368, QpProblem.h:15-27):
 equality rows (|u-l|<tol) get rho*rho_equality_scale, effectively-unbounded
 rows get rho_infty, others rho. The KKT system is solved via the Schur
 complement normal equations K = H + sigma*I + A' diag(rho) A with one
-Cholesky factorization per problem, reused across iterations — on TPU one
-batched Cholesky + two batched triangular solves per iteration, all MXU work
-with static shapes. All factorizations are Jacobi-prescaled (D K D with
+factorization per problem, reused across iterations: a Newton-Schulz
+inverse (`_ns_inverse`), so every solve is a batched matvec with static
+shapes. All factorizations are Jacobi-prescaled (D K D with
 D = diag(K)^-1/2) so the badly-scaled MPC Hessian (diag ~1e-4) plus large
-penalty terms stay within f32 Cholesky's conditioning budget.
+penalty terms stay within the f32 conditioning budget.
 
 After the fixed ADMM iterations, an OSQP-style *polish* enforces the
 identified active set with a large penalty and re-solves, refining by
 dropping wrong-sign multipliers and adding violated rows — a fixed number of
-rounds, each one prescaled Cholesky, keeping shapes static. This recovers
+rounds, each one prescaled factorization, keeping shapes static. This recovers
 near-exact solutions (~1e-3 N force error vs a float64 interior-point
 oracle) from a modest iteration count.
 
-Two interfaces:
+Three interfaces:
 * `admm_dense` — generic dense-A solver (the JCQP-equivalent component and
   differential-test subject);
 * `admm_mpc`  — MPC-specialized: A is the friction pyramid, applied
-  structurally (never materialized), K assembled from 3x3 Gram blocks.
+  structurally (never materialized), K assembled from 3x3 Gram blocks;
+* `admm_mpc_batched` — the same with an explicit batch axis (the batched
+  pipeline and the closed-loop engines).
 
 A fixed iteration count keeps batches divergence-free; `kkt_residuals`
 gives an optimality certificate for tests/telemetry.
@@ -62,11 +64,10 @@ def constraint_rho(cfg: SolverConfig, l, u):
 def _ns_inverse(ks, iters: int, init=None):
     """Newton-Schulz inverse of an SPD, Jacobi-scaled matrix.
 
-    X_{k+1} = X_k (2I - K X_k): quadratic convergence, pure matmuls — the
-    MXU-native replacement for Cholesky + triangular solves, which XLA lowers
-    to serial loops that are ~100x slower on TPU for batches of small
-    matrices. ~20 iterations reach the f32 floor at condition 1e4; a warm
-    start (init = inverse of a nearby matrix) needs far fewer.
+    X_{k+1} = X_k (2I - K X_k): quadratic convergence, pure batched
+    matmuls (HIGHEST, i.e. true f32) in place of a Cholesky factorization
+    and triangular solves. ~20 iterations reach the f32 floor at condition
+    1e4; a warm start (init = inverse of a nearby matrix) needs far fewer.
     """
     n = ks.shape[-1]
     eye = jnp.eye(n, dtype=ks.dtype)
@@ -313,8 +314,8 @@ def admm_mpc(
         k = hess_n + cfg.sigma * eye
         k4 = k.reshape(h * nf, 3, h * nf, 3)
         k4 = k4.at[idx, :, idx, :].add(gram.reshape(h * nf, 3, 3))
-        ns = cfg.ns_iters if prev_inv is None else cfg.ns_warm_iters
-        return _make_solver(k4.reshape(n, n), ns, prev_inv, prev_scale)
+        return _make_solver(k4.reshape(n, n), cfg.ns_iters, prev_inv,
+                            prev_scale)
 
     def apply_a(v):
         return formation.pyramid_apply(cfg_mpc, v.reshape(h, nf, 3)).reshape(-1)
@@ -354,82 +355,24 @@ def admm_mpc(
 # Explicitly-batched MPC solve (the bench/production hot path).
 #
 # The per-scenario admm_mpc under vmap lets XLA batch everything, but the
-# KKT factorizations then run as XLA batched matmuls that re-stream HBM
-# every Newton-Schulz step. This variant carries the batch axis explicitly
-# so the factorization can dispatch to the VMEM-resident Pallas kernel
-# (ops/ns_inverse.py): ~1.5x on the dominant phase, and higher accuracy
-# (in-kernel HIGHEST matmuls reach resid ~3e-7 vs ~5e-6).
+# solver code then cannot tell the batch axis from the problem axes. This
+# variant carries the batch axis explicitly, so the data-dependent
+# reductions (adaptive rho, polish best-iterate) can be taken per packed
+# scenario and the factorizations are plain batched matmuls.
 
-def _batched_solver(k, cfg: SolverConfig, use_pallas: bool, schedule=None,
-                    prev_inv=None, prev_scale=None, schur: bool = False):
-    """k: (B,n,n) SPD -> solve(b_vec (B,n)) -> (B,n), Jacobi-prescaled with
-    iterative refinement. The Pallas path runs the scaled mixed-precision
-    schedule (13 iterations ~= 25 plain HIGHEST ones, 2x faster).
-
-    `schedule` is an optional (a0, n_scaled, n_quad, n_hi) override for the
-    Pallas NS schedule; default is the full (polish-grade) schedule from cfg.
-    ADMM-phase factorizations pass the short cfg.ns_admm_* schedule (their
-    Jacobi-scaled K has measured cond <= ~213, see config.py).
-
-    `prev_inv`/`prev_scale` (a previous solver's `.inv_padded`/`.scale` for
-    a NEARBY system) warm-start the factorization: the rescaled inverse
-    seeds the short quadratic schedule in ns_inverse_pallas_warm, whose
-    per-system divergence guard falls back to the full cold `schedule` —
-    the factorization is always full-grade, warm starts only save time."""
-    n = k.shape[-1]
+def _batched_solver(k, cfg: SolverConfig):
+    """k: (B,n,n) SPD -> solve(b_vec (B,n)) -> (B,n): Jacobi-prescaled
+    Newton-Schulz inverse (cfg.ns_iters HIGHEST iterations), with
+    iterative refinement at the solve."""
     d = lax.rsqrt(jnp.maximum(jnp.diagonal(k, axis1=-2, axis2=-1), 1e-30))
     ks = k * d[:, :, None] * d[:, None, :]
-    inv_padded = None
-    if schedule is None:
-        schedule = (cfg.ns_a0, cfg.ns_scaled_iters, cfg.ns_quad_iters,
-                    cfg.ns_hi_iters)
-    if use_pallas and schur and prev_inv is None and 128 < n <= 192:
-        # ADMM-grade 128<n<=192: Schur split at the 128 tile boundary —
-        # 2.37x (n=144) / 1.45x (n=192) over the 256-tile kernel at equal
-        # residual for these systems' measured conditioning; NOT valid at
-        # polish conditioning (see ops/ns_inverse.py Schur block comment).
-        from quadruped_ctrl_tpu.ops import ns_inverse as NI
-
-        inv = NI.ns_inverse_schur_scaled(ks, *schedule)
-        inv_padded = NI.pad_to(inv, n)   # identity padding, same contract
-                                         # as the padded-kernel inverse
-    elif use_pallas:
-        from quadruped_ctrl_tpu.ops import ns_inverse as NI
-
-        b = ks.shape[0]
-        npad = NI.pad_sizes(n)
-        ksp = NI.pad_to(ks, n, npad)
-        pad_b = (-b) % NI.G
-        if pad_b:
-            ksp = jnp.concatenate(
-                [ksp, jnp.broadcast_to(jnp.eye(npad, dtype=jnp.float32),
-                                       (pad_b, npad, npad))], axis=0
-            )
-        if prev_inv is not None:
-            # rescale the previous inverse across the two Jacobi scalings
-            r = jnp.ones((b, npad), jnp.float32).at[:, :n].set(prev_scale / d)
-            init = prev_inv * r[:, :, None] * r[:, None, :]
-            if pad_b:
-                init = jnp.concatenate(
-                    [init, jnp.broadcast_to(jnp.eye(npad, dtype=jnp.float32),
-                                            (pad_b, npad, npad))], axis=0
-                )
-            inv_padded = NI.ns_inverse_pallas_warm(
-                ksp, init, *schedule, n_wquad=cfg.ns_warm_quad,
-                n_whi=cfg.ns_warm_hi, guard=cfg.ns_warm_guard,
-            )[:b]
-        else:
-            inv_padded = NI.ns_inverse_pallas_scaled(ksp, *schedule)[:b]
-        inv = inv_padded[:, :n, :n]
-    else:
-        inv = jax.vmap(lambda m: _ns_inverse(m, cfg.ns_iters))(ks)
-
+    inv = jax.vmap(lambda m: _ns_inverse(m, cfg.ns_iters))(ks)
     inv16 = inv.astype(jnp.bfloat16)
 
     def solve(b_vec, refine: int = 2, lowp: bool = False):
         bs = d * b_vec
         if lowp:
-            # bf16 inverse matvec: half the HBM stream; only used for the
+            # bf16 inverse matvec: half the memory stream; only used for the
             # bulk ADMM iterations, never where the result is read out
             x = jnp.einsum("bij,bj->bi", inv16, bs.astype(jnp.bfloat16),
                            preferred_element_type=jnp.float32)
@@ -440,99 +383,22 @@ def _batched_solver(k, cfg: SolverConfig, use_pallas: bool, schedule=None,
             x = x + jnp.einsum("bij,bj->bi", inv, r, precision=_HI)
         return d * x
 
-    solve.inv_padded = inv_padded     # (B,128,128) Jacobi-scaled, or None
     solve.scale = d                   # (B,n)
     solve.inv = inv                   # (B,n,n) Jacobi-scaled inverse
     solve.ks = ks                     # (B,n,n) Jacobi-scaled K
     return solve
 
 
-# A/B escape hatch for the fused K-build factorization path (benchmarks and
-# differential tests flip this to compare against the XLA-assembly path).
-_FUSED_BUILD = True
-
-
-def _batched_solver_fused(hp_g, g9, n: int, bsz: int, cfg: SolverConfig,
-                          schedule=None):
-    """Fused-build variant of `_batched_solver`: K assembly + Jacobi
-    prescale + scaled NS run inside ONE Pallas kernel
-    (ops/ns_inverse.ns_inverse_pallas_scaled_build).
-
-    Measured motivation (v5e, B=2048/n=120): the XLA K assembly (gram
-    broadcast + add + jnp.diagonal + prescale + pad) costs ~4.0 ms — equal
-    to the NS schedule itself — and runs once per factorization, 5x per
-    cold solve. hp_g: (B_pad, npad, npad) hess_n + sigma I, padded to the
-    kernel tile AND to a G-multiple batch (built ONCE per solve);
-    g9: (B, 9, nblk) gram components."""
-    from quadruped_ctrl_tpu.ops import ns_inverse as NI
-
-    npad = hp_g.shape[-1]
-    nblk = n // 3
-    pad_b = hp_g.shape[0] - bsz
-    g9_u = g9                           # unpadded, for K-matvec fallback
-    if pad_b:
-        g9 = jnp.concatenate(
-            [g9, jnp.zeros((pad_b,) + g9.shape[1:], g9.dtype)], axis=0)
-    if schedule is None:
-        schedule = (cfg.ns_a0, cfg.ns_scaled_iters, cfg.ns_quad_iters,
-                    cfg.ns_hi_iters)
-    inv_p, ks_p, d_p = NI.ns_inverse_pallas_scaled_build(hp_g, g9, *schedule)
-    inv_padded = inv_p[:bsz]
-    inv = inv_padded[:, :n, :n]
-    d = d_p[:bsz, 0, :n]
-    if ks_p is not None:
-        ks = ks_p[:bsz, :n, :n]
-        k_scaled_mv = None
-    else:
-        # 256 tile: the kernel skips the ks output (scoped-VMEM budget —
-        # see ns_inverse_pallas_scaled_build). Refinement matvecs against
-        # the scaled K are reconstructed as d*(K@(d*x)) with
-        # K = hp + blockdiag3(gram): same arithmetic as the in-kernel
-        # assembly, one dense (B,n,n) matvec + a tiny block-diag apply.
-        ks = None
-        hp_n = hp_g[:bsz, :n, :n]
-        g4 = g9_u.transpose(0, 2, 1).reshape(bsz, nblk, 3, 3)
-
-        def k_scaled_mv(x):
-            xu = d * x
-            ku = jnp.einsum("bij,bj->bi", hp_n, xu, precision=_HI)
-            ku = ku + jnp.einsum("bdij,bdj->bdi", g4,
-                                 xu.reshape(bsz, nblk, 3),
-                                 precision=_HI).reshape(bsz, n)
-            return d * ku
-    inv16 = inv.astype(jnp.bfloat16)
-
-    def solve(b_vec, refine: int = 2, lowp: bool = False):
-        bs = d * b_vec
-        if lowp:
-            x = jnp.einsum("bij,bj->bi", inv16, bs.astype(jnp.bfloat16),
-                           preferred_element_type=jnp.float32)
-            return d * x
-        x = jnp.einsum("bij,bj->bi", inv, bs, precision=_HI)
-        for _ in range(refine):
-            ksx = (jnp.einsum("bij,bj->bi", ks, x, precision=_HI)
-                   if ks is not None else k_scaled_mv(x))
-            r = bs - ksx
-            x = x + jnp.einsum("bij,bj->bi", inv, r, precision=_HI)
-        return d * x
-
-    solve.inv_padded = inv_padded
-    solve.scale = d
-    solve.inv = inv
-    solve.ks = ks
-    return solve
-
-
 def _gj_inverse(c, pivot: bool = True):
     """Batched (B,r,r) general-matrix inverse via Gauss-Jordan: r
     fully-batched elimination steps over the (B,r,2r) augmented system. Used
-    for the small Woodbury capacitance matrices, where XLA's batched LU
-    would lower to serial scalar loops on TPU; every step here is a batched
-    rank-1 update on the VPU.
+    for the small Woodbury capacitance matrices: every step is a batched
+    elementwise rank-1 update, with no per-matrix control flow.
 
-    With `pivot`, partial pivoting runs as a select + one-hot reduce (NOT
-    take_along_axis — a generic TPU gather costs more than the whole
-    elimination). The Woodbury caller orders constraint ADDITIONS (+1
+    With `pivot`, partial pivoting runs as a select + one-hot reduce (no
+    gather; the reduce is pinned to HIGHEST so it copies the pivot row
+    exactly even where an f32 dot would default to a reduced-precision
+    mode). The Woodbury caller orders constraint ADDITIONS (+1
     capacitance diagonal, diagonally dominant-ish) ahead of removals and
     passes pivot=False — halving the per-step op count; its downstream
     solves carry refinement against the true K, and the polish best-iterate
@@ -546,7 +412,8 @@ def _gj_inverse(c, pivot: bool = True):
             col = jnp.where(rows[None, :] >= k, jnp.abs(aug[:, :, k]), -1.0)
             p = jnp.argmax(col, axis=1)                          # (B,)
             is_p = rows[None, :] == p[:, None]                   # (B,r)
-            rowp = jnp.einsum('br,brc->bc', is_p.astype(c.dtype), aug)
+            rowp = jnp.einsum('br,brc->bc', is_p.astype(c.dtype), aug,
+                              precision=_HI)
             rowk = aug[:, k, :]
             aug = jnp.where(is_p[:, :, None], rowk[:, None, :], aug)
             aug = aug.at[:, k, :].set(rowp)
@@ -574,81 +441,6 @@ def _pyramid_dense(mu: float, h: int, nf: int):
     return a
 
 
-def admm_mpc_fused(
-    cfg: SolverConfig,
-    cfg_mpc: MPCConfig,
-    hess,            # (B, n, n) with n = 3*nf*h
-    grad,            # (B, n)
-    gait_table,      # (B, h, nf)
-    iterations: int | None = None,
-    polish_rounds: int | None = None,
-):
-    """admm_mpc_batched semantics via the single VMEM-resident Pallas kernel
-    (ops/fused_admm.py): KKT build + NS factorization + every ADMM iteration
-    + every polish round run in-kernel, so the (B,n,n) inverse never
-    round-trips HBM per iteration. TPU only; the XLA path remains the CPU /
-    differential-test reference. Returns forces (B, n)."""
-    from quadruped_ctrl_tpu.ops import fused_admm as FA
-
-    n_iter = cfg.iterations if iterations is None else iterations
-    if polish_rounds is None:
-        # the in-kernel ADMM phase rounds differently from the XLA path's
-        # bf16-streamed iterate (full-HIGHEST matvecs, no f32 tail split);
-        # its active-set seeds occasionally need one extra polish round to
-        # land the knife-edge rows the XLA path's seed resolves in
-        # cfg.polish_rounds (measured: 2/64 random scenarios at 17 N without
-        # it, all within the oracle gate with it)
-        polish_rounds = cfg.polish_rounds + 1
-    bsz, h, nf = gait_table.shape
-    n = 3 * nf * h
-    m = 5 * nf * h
-    assert n <= FA.N and m <= FA.M
-    dtype = hess.dtype
-
-    f_scale = jnp.asarray(cfg_mpc.f_max, dtype)
-    hess_n = hess * (f_scale * f_scale)
-    grad_n = grad * f_scale
-
-    big = jnp.asarray(cfg_mpc.big_number, dtype)
-    u3 = jnp.broadcast_to(big, (bsz, h, nf, 5)).copy()
-    u3 = u3.at[..., 4].set(gait_table * (cfg_mpc.f_max / f_scale))
-    l = jnp.zeros((bsz, m), dtype)
-    u = u3.reshape(bsz, -1)
-    rho = constraint_rho(cfg, l, u)
-
-    # pad to kernel tiles: variables -> N (identity diagonal), rows -> M
-    # (zero A rows with l=u=0, rho=1: z pins to 0, duals stay 0 — inert)
-    hp = jnp.zeros((bsz, FA.N, FA.N), jnp.float32)
-    hp = hp.at[:, :n, :n].set(hess_n)
-    idx = jnp.arange(n, FA.N)
-    hp = hp.at[:, idx, idx].set(1.0)
-    gp = jnp.zeros((bsz, FA.N), jnp.float32).at[:, :n].set(grad_n)
-    lp = jnp.zeros((bsz, FA.M), jnp.float32).at[:, :m].set(l)
-    up = jnp.zeros((bsz, FA.M), jnp.float32).at[:, :m].set(u)
-    rp = jnp.ones((bsz, FA.M), jnp.float32).at[:, :m].set(rho)
-    a_pad = jnp.zeros((FA.M, FA.N), jnp.float32)
-    a_pad = a_pad.at[:m, :n].set(jnp.asarray(_pyramid_dense(cfg_mpc.mu, h, nf)))
-
-    pad_b = (-bsz) % FA.G
-    if pad_b:
-        ident = jnp.broadcast_to(jnp.eye(FA.N, dtype=jnp.float32),
-                                 (pad_b, FA.N, FA.N))
-        hp = jnp.concatenate([hp, ident], axis=0)
-        gp = jnp.concatenate([gp, jnp.zeros((pad_b, FA.N), jnp.float32)], axis=0)
-        lp = jnp.concatenate([lp, jnp.zeros((pad_b, FA.M), jnp.float32)], axis=0)
-        up = jnp.concatenate([up, jnp.zeros((pad_b, FA.M), jnp.float32)], axis=0)
-        rp = jnp.concatenate([rp, jnp.ones((pad_b, FA.M), jnp.float32)], axis=0)
-
-    x = FA.fused_admm_solve(
-        a_pad, hp, gp, lp, up, rp,
-        mus_a0=cfg.ns_a0, n_scaled=cfg.ns_scaled_iters,
-        n_quad=cfg.ns_quad_iters, n_hi=cfg.ns_hi_iters,
-        n_iter=n_iter, polish_rounds=polish_rounds, sigma=cfg.sigma,
-        alpha_rx=cfg.over_relax_alpha, infty=cfg.infty,
-    )
-    return x[:bsz, :n] * f_scale
-
-
 def admm_mpc_batched(
     cfg: SolverConfig,
     cfg_mpc: MPCConfig,
@@ -657,7 +449,6 @@ def admm_mpc_batched(
     gait_table,      # (B, h, nf)
     iterations: int | None = None,
     polish_rounds: int | None = None,
-    use_pallas: bool | None = None,
     warm=None,
     return_warm: bool = False,
     pack: int = 1,
@@ -679,10 +470,6 @@ def admm_mpc_batched(
     partner's rho and polish choice."""
     n_iter = cfg.iterations if iterations is None else iterations
     polish_rounds = cfg.polish_rounds if polish_rounds is None else polish_rounds
-    if use_pallas is None:
-        # Pallas kernels lower pltpu.VMEM blocks — TPU only (a GPU backend
-        # would fail at lowering; CPU runs the XLA reference path)
-        use_pallas = jax.default_backend() == "tpu"
     bsz, h, nf = gait_table.shape
     n = 3 * nf * h
     dtype = hess.dtype
@@ -712,58 +499,14 @@ def admm_mpc_batched(
             fac.reshape(bsz, pack, 1), (bsz, pack, d)
         ).reshape(bsz, pack * d)
 
-    admm_schedule = (cfg.ns_admm_a0, cfg.ns_admm_scaled_iters,
-                     cfg.ns_quad_iters, cfg.ns_hi_iters)
-
-    hp_g = None
-    if use_pallas:
-        # hess_n + sigma I, tile-padded (identity diagonal) and G-padded —
-        # built ONCE per solve; every cold factorization then runs the
-        # fused K-build + NS kernel against it (see _batched_solver_fused)
-        from quadruped_ctrl_tpu.ops import ns_inverse as NI
-
-        npad_f = NI.pad_sizes(n)
-        hp_g = NI.pad_to(hess_n + cfg.sigma * eye[None], n, npad_f)
-        pad_bf = (-bsz) % NI.G
-        if pad_bf:
-            hp_g = jnp.concatenate(
-                [hp_g, jnp.broadcast_to(jnp.eye(npad_f, dtype=jnp.float32),
-                                        (pad_bf, npad_f, npad_f))], axis=0)
-
-    # the 256-tile fused kernel does not emit ks (scoped-VMEM budget); the
-    # off-by-default Woodbury polish needs solve.ks materialized, so its
-    # round-0 factorization takes the two-step path there
-    fused_ok = _FUSED_BUILD and not (
-        cfg.polish_woodbury and polish_rounds > 1 and use_pallas
-        and hp_g is not None and hp_g.shape[-1] > 128)
-
-    def build_solver(w, schedule=None, prev_inv=None, prev_scale=None):
-        # ADMM-grade factorizations (the only callers passing a schedule —
-        # cold solve0 + adaptive-rho refactorizations) of 128<n<=160
-        # systems take the Schur split at the 128 tile boundary instead of
-        # the 256-tile fused kernel. Per-factorization the split wins at
-        # both sizes (2.37x at n=144, 1.45x at n=192 —
-        # experiments/SCHUR_PROBE_r05.json), but it forgoes the fused
-        # in-kernel K-build for an XLA assembly; the measured NET lane
-        # effect is +8.1% at n=144 (h=16 ms=3 midband) and -2% at n=192,
-        # hence the 160 cutoff between the two measured points. Polish
-        # factorizations (schedule=None, cond ~1e5+) keep the full path.
-        schur = (cfg.ns_schur_split and use_pallas and prev_inv is None
-                 and schedule is not None and 128 < n <= 160)
-        if use_pallas and prev_inv is None and fused_ok and not schur:
-            gram = formation.pyramid_gram(cfg_mpc, w.reshape(bsz, h, nf, 5))
-            g9 = gram.reshape(bsz, h * nf, 9).transpose(0, 2, 1)  # (B,9,hnf)
-            return _batched_solver_fused(hp_g, g9, n, bsz, cfg,
-                                         schedule=schedule)
+    def build_solver(w):
         gram = formation.pyramid_gram(cfg_mpc, w.reshape(bsz, h, nf, 5))
         gram = gram.reshape(bsz, h * nf, 3, 3)
         delta = (
             gram[:, :, :, None, :] * sel[None, :, None, :, None]
         ).reshape(bsz, n, n)
         k = hess_n + cfg.sigma * eye[None] + delta
-        return _batched_solver(k, cfg, use_pallas, schedule=schedule,
-                               prev_inv=prev_inv, prev_scale=prev_scale,
-                               schur=schur)
+        return _batched_solver(k, cfg)
 
     def apply_a(v):
         return formation.pyramid_apply(
@@ -778,166 +521,56 @@ def admm_mpc_batched(
     # ---- ADMM iterations (batched) ----
     alpha = cfg.over_relax_alpha
     sigma = cfg.sigma
-    inv_rho = 1.0 / rho
-    solve0 = build_solver(rho, schedule=admm_schedule)
+    solve0 = build_solver(rho)
 
-    if use_pallas and solve0.inv_padded is not None:
-        # Tile-aligned iterate phase (profiled on v5e): the bf16 inverse
-        # matvec is this phase's HBM stream and XLA's multiply-reduce fusion
-        # already runs it at ~memory peak, but the structural pyramid applies
-        # lowered to hundreds of small concat/pad ops per scan step that cost
-        # 2.5x the matvec itself. Run the whole loop in (128, 256)-padded
-        # spaces with ONE dense shared-A matmul per apply (A is tiny and
-        # shared across the batch) and the Jacobi scale folded into the
-        # inverse. Padding is inert: zero A rows/cols with l=u=0, rho=1 pin
-        # the padded z/y/x entries to ~0. A VMEM-resident Pallas iterate
-        # kernel was tried and LOSES here — with the inverse on-chip the
-        # per-system matvec becomes the floor, and both its lowerings
-        # (per-system MXU dots: weight-reload-bound; VPU multiply+reduce:
-        # shuffle-bound) sit above the streamed bf16 matvec.
-        m = 5 * nf * h
-        np_ = solve0.inv_padded.shape[-1]
-        mp_ = -(-m // 128) * 128
+    def mk_body(lowp, solve_c, rho_c):
+        inv_rho_c = 1.0 / rho_c
 
-        def padded_inverse(solver):
-            dp = jnp.ones((bsz, np_), dtype).at[:, :n].set(solver.scale)
-            invf = solver.inv_padded * (dp[:, :, None] * dp[:, None, :])
-            return invf, invf.astype(jnp.bfloat16)
+        def body(carry, _):
+            x, z, y = carry
+            rhs = sigma * x - grad_n + apply_at(rho_c * z - y)
+            # inexact solves are fine inside ADMM (a fixed-point
+            # iteration); refinement is reserved for the polish solves.
+            # The segments before the last adaptive-rho event use the bf16
+            # inverse (a memory-bound phase); the last segment runs in f32
+            # and re-contracts to the exact fixed point.
+            x_t = solve_c(rhs, refine=0, lowp=lowp)
+            z_t = apply_a(x_t)
+            x_new = alpha * x_t + (1.0 - alpha) * x
+            z_relax = alpha * z_t + (1.0 - alpha) * z
+            z_new = jnp.clip(z_relax + inv_rho_c * y, l, u)
+            y_new = y + rho_c * (z_relax - z_new)
+            return (x_new, z_new, y_new), None
+        return body
 
-        inv_fullp, inv16p = padded_inverse(solve0)
-        gradp = jnp.zeros((bsz, np_), dtype).at[:, :n].set(grad_n)
-        lP = jnp.zeros((bsz, mp_), dtype).at[:, :m].set(l)
-        uP = jnp.zeros((bsz, mp_), dtype).at[:, :m].set(u)
-        rhoP = jnp.ones((bsz, mp_), dtype).at[:, :m].set(rho)
-        a_pad = jnp.zeros((mp_, np_), dtype)
-        a_pad = a_pad.at[:m, :n].set(
-            jnp.asarray(_pyramid_dense(cfg_mpc.mu, h, nf), dtype)
-        )
-        at_pad = a_pad.T
-
-        def mk_body(lowp, inv_fullp, inv16p, rhoP, inv_rhoP):
-            def body(carry, _):
-                x, z, y = carry                          # (B,128), (B,256)x2
-                rhs = sigma * x - gradp + jnp.matmul(
-                    rhoP * z - y, a_pad, precision=_HI)
-                if lowp:
-                    x_t = jnp.einsum(
-                        "bij,bj->bi", inv16p, rhs.astype(jnp.bfloat16),
-                        preferred_element_type=jnp.float32)
-                else:
-                    x_t = jnp.einsum("bij,bj->bi", inv_fullp, rhs,
-                                     precision=_HI)
-                z_t = jnp.matmul(x_t, at_pad, precision=_HI)
-                x_new = alpha * x_t + (1.0 - alpha) * x
-                z_relax = alpha * z_t + (1.0 - alpha) * z
-                z_new = jnp.clip(z_relax + inv_rhoP * y, lP, uP)
-                y_new = y + rhoP * (z_relax - z_new)
-                return (x_new, z_new, y_new), None
-            return body
-
-        def run(carry, inv_fullp, inv16p, rhoP, n_lo, n_hi):
-            carry, _ = lax.scan(
-                mk_body(True, inv_fullp, inv16p, rhoP, 1.0 / rhoP),
-                carry, None, length=n_lo)
-            carry, _ = lax.scan(
-                mk_body(False, inv_fullp, inv16p, rhoP, 1.0 / rhoP),
-                carry, None, length=n_hi)
-            return carry
-
-        if warm is None:
-            init = (jnp.zeros((bsz, np_), dtype),
-                    jnp.zeros((bsz, mp_), dtype),
-                    jnp.zeros((bsz, mp_), dtype))
-        else:
-            wx, wz, wy = warm
-            init = (
-                jnp.zeros((bsz, np_), dtype).at[:, :n].set(wx),
-                jnp.zeros((bsz, mp_), dtype).at[:, :m].set(wz),
-                jnp.zeros((bsz, mp_), dtype).at[:, :m].set(wy),
-            )
-        adapt = max(int(cfg.rho_adapt), 0)
-        segs = adapt + 1
-        seg = n_iter // segs
-        carry = init
-        for s_i in range(segs):
-            last = s_i == segs - 1
-            n_seg = n_iter - seg * (segs - 1) if last else seg
-            tail = min(cfg.f32_tail_iters, n_seg) if last else 0
-            carry = run(carry, inv_fullp, inv16p, rhoP, n_seg - tail, tail)
-            if not last:
-                # OSQP adaptive-rho (per scenario) + ONE cheap COLD
-                # refactorization (the short ADMM-grade NS schedule; a
-                # warm-seeded kernel was measured slower — see
-                # ops/ns_inverse.py warm-NS STATUS note): lets hard
-                # cone-binding active sets converge in far fewer
-                # iterations than any fixed rho.
-                xs, zs, ys = carry
-                ax = jnp.matmul(xs, at_pad, precision=_HI)[:, :m]
-                hx = jnp.einsum("bij,bj->bi", hess_n, xs[:, :n],
-                                precision=_HI)
-                aty = jnp.matmul(ys, a_pad, precision=_HI)[:, :n]
-                fac = _adapt_rho_factor(
-                    cfg, per_scn(ax), per_scn(zs[:, :m]), per_scn(hx),
-                    per_scn(grad_n), per_scn(aty))
-                rhoP = jnp.ones((bsz, mp_), dtype).at[:, :m].set(
-                    rho * scn_fac_rows(fac, m // pack))
-                solve_s = build_solver(rhoP[:, :m], schedule=admm_schedule)
-                inv_fullp, inv16p = padded_inverse(solve_s)
-        xp, zp, yp = carry
-        x = xp[:, :n]
-        z = zp[:, :m]
-        y = yp[:, :m]
+    if warm is None:
+        init = (0.0 * grad_n, (0.0 * rho).astype(dtype),
+                (0.0 * rho).astype(dtype))
     else:
-        def mk_body(lowp, solve_c, rho_c):
-            inv_rho_c = 1.0 / rho_c
-
-            def body(carry, _):
-                x, z, y = carry
-                rhs = sigma * x - grad_n + apply_at(rho_c * z - y)
-                # inexact solves are fine inside ADMM (a fixed-point
-                # iteration); refinement is reserved for the polish solves.
-                # The bulk of the iterations additionally uses the bf16
-                # inverse (HBM-bound phase); the f32 tail re-contracts to
-                # the exact fixed point.
-                x_t = solve_c(rhs, refine=0, lowp=lowp)
-                z_t = apply_a(x_t)
-                x_new = alpha * x_t + (1.0 - alpha) * x
-                z_relax = alpha * z_t + (1.0 - alpha) * z
-                z_new = jnp.clip(z_relax + inv_rho_c * y, l, u)
-                y_new = y + rho_c * (z_relax - z_new)
-                return (x_new, z_new, y_new), None
-            return body
-
-        if warm is None:
-            init = (0.0 * grad_n, (0.0 * rho).astype(dtype),
-                    (0.0 * rho).astype(dtype))
-        else:
-            init = tuple(w.astype(dtype) for w in warm)
-        adapt = max(int(cfg.rho_adapt), 0)
-        segs = adapt + 1
-        seg = n_iter // segs
-        carry = init
-        rho_c = rho
-        solve_c = solve0
-        for s_i in range(segs):
-            last = s_i == segs - 1
-            n_seg = n_iter - seg * (segs - 1) if last else seg
-            tail = (min(cfg.f32_tail_iters, n_seg) if use_pallas else n_seg) \
-                if last else 0
-            carry, _ = lax.scan(mk_body(True, solve_c, rho_c), carry, None,
-                                length=n_seg - tail)
-            carry, _ = lax.scan(mk_body(False, solve_c, rho_c), carry, None,
-                                length=tail)
-            if not last:
-                # OSQP adaptive-rho (see the padded branch for rationale)
-                xs, zs, ys = carry
-                hx = jnp.einsum("bij,bj->bi", hess_n, xs, precision=_HI)
-                fac = _adapt_rho_factor(
-                    cfg, per_scn(apply_a(xs)), per_scn(zs), per_scn(hx),
-                    per_scn(grad_n), per_scn(apply_at(ys)))
-                rho_c = rho * scn_fac_rows(fac, m_full // pack)
-                solve_c = build_solver(rho_c, schedule=admm_schedule)
-        x, z, y = carry
+        init = tuple(w.astype(dtype) for w in warm)
+    adapt = max(int(cfg.rho_adapt), 0)
+    segs = adapt + 1
+    seg = n_iter // segs
+    carry = init
+    rho_c = rho
+    solve_c = solve0
+    for s_i in range(segs):
+        last = s_i == segs - 1
+        n_seg = n_iter - seg * (segs - 1) if last else seg
+        carry, _ = lax.scan(mk_body(not last, solve_c, rho_c), carry, None,
+                            length=n_seg)
+        if not last:
+            # OSQP adaptive-rho, per scenario, + one cold refactorization:
+            # lets hard cone-binding active sets converge in far fewer
+            # iterations than any fixed rho
+            xs, zs, ys = carry
+            hx = jnp.einsum("bij,bj->bi", hess_n, xs, precision=_HI)
+            fac = _adapt_rho_factor(
+                cfg, per_scn(apply_a(xs)), per_scn(zs), per_scn(hx),
+                per_scn(grad_n), per_scn(apply_at(ys)))
+            rho_c = rho * scn_fac_rows(fac, m_full // pack)
+            solve_c = build_solver(rho_c)
+    x, z, y = carry
 
     warm_out = (x, z, y)          # pre-polish fixed-point iterate, normalized
 
@@ -1019,9 +652,8 @@ def admm_mpc_batched(
             #     cancellation-limited;
             # (3) M warm-starts a ns_wb_quad+ns_wb_hi Newton-Schulz
             #     refactorization (each iteration squares the residual) —
-            #     2 iterations instead of the 12-iteration cold schedule,
-            #     with no divergence guard, so none of the both-branches
-            #     Mosaic tax that sank the guarded warm kernel.
+            #     2 iterations instead of the ns_iters cold schedule, with
+            #     no divergence guard.
             rank = min(cfg.polish_woodbury_rank * pack, 5 * h * nf)
             sqrt_w = jnp.sqrt(jnp.asarray(w_act, dtype))
             a_dense = jnp.asarray(_pyramid_dense(cfg_mpc.mu, h, nf), dtype)
@@ -1043,8 +675,8 @@ def admm_mpc_batched(
                 # and the best-iterate selection guards the difference.
                 add_w = act_d & ~act_p
                 _, idx = lax.top_k(add_w.astype(dtype), rank)
-                # row selection as one-hot contractions (generic TPU
-                # gathers are ~25x slower — formation.py's stance lesson)
+                # row selection as one-hot contractions (0/1 data: exact
+                # at any matmul precision)
                 onehot = jax.nn.one_hot(idx, flip_w.shape[-1], dtype=dtype)
                 msel = jnp.einsum('brm,bm->br', onehot,
                                   add_w.astype(dtype))        # (B,rank)
@@ -1080,31 +712,13 @@ def admm_mpc_batched(
                     jnp.diagonal(ks1, axis1=-2, axis2=-1), 1e-30))
                 ks1s = ks1 * d1[:, :, None] * d1[:, None, :]
                 init = m_wb / (d1[:, :, None] * d1[:, None, :])
-                if use_pallas:
-                    from quadruped_ctrl_tpu.ops import ns_inverse as NI
-
-                    npad = NI.pad_sizes(n)
-                    ksp = NI.pad_to(ks1s, n, npad)
-                    ip = NI.pad_to(init, n, npad)
-                    pad_b = (-bsz) % NI.G
-                    if pad_b:
-                        ident = jnp.broadcast_to(
-                            jnp.eye(npad, dtype=jnp.float32),
-                            (pad_b, npad, npad))
-                        ksp = jnp.concatenate([ksp, ident], axis=0)
-                        ip = jnp.concatenate([ip, ident], axis=0)
-                    inv1 = NI.ns_inverse_pallas_refine(
-                        ksp, ip, cfg.ns_wb_quad, cfg.ns_wb_hi
-                    )[:bsz, :n, :n]
-                else:
-                    eye_n = jnp.eye(n, dtype=dtype)
-                    x_ = init
-                    for _ in range(cfg.ns_wb_quad + cfg.ns_wb_hi):
-                        kx = jnp.einsum('bij,bjk->bik', ks1s, x_,
-                                        precision=_HI)
-                        x_ = jnp.einsum('bij,bjk->bik', x_,
-                                        2.0 * eye_n - kx, precision=_HI)
-                    inv1 = x_
+                eye_n = jnp.eye(n, dtype=dtype)
+                x_ = init
+                for _ in range(cfg.ns_wb_quad + cfg.ns_wb_hi):
+                    kx = jnp.einsum('bij,bjk->bik', ks1s, x_, precision=_HI)
+                    x_ = jnp.einsum('bij,bjk->bik', x_, 2.0 * eye_n - kx,
+                                    precision=_HI)
+                inv1 = x_
                 dd_n = dd_p * d1
 
                 def wsolve(b_vec, refine: int = 2):

@@ -3,7 +3,7 @@
 The role qpOASES plays in the reference stack (the trusted high-accuracy
 solver the fast solver is differential-tested against — SURVEY.md §2.7):
 a Mehrotra predictor-corrector IPM in NumPy float64 with a KKT certificate.
-Used by the test suite as ground truth for the batched TPU ADMM, and
+Used by the test suite as ground truth for the batched ADMM, and
 available to users for offline verification.
 """
 
@@ -13,7 +13,8 @@ import numpy as np
 import scipy.linalg
 
 
-def solve_qp_exact(hess, grad, a_mat, l, u, iters=100, tol=1e-10):
+def solve_qp_exact(hess, grad, a_mat, l, u, iters=100, tol=1e-10,
+                   res_tol=1e-8):
     """High-accuracy convex QP solve via a primal-dual interior-point method
     (float64), with a KKT certificate. Independent algorithm family from the
     framework's ADMM; much more accurate than scipy trust-constr on flat MPC
@@ -21,6 +22,11 @@ def solve_qp_exact(hess, grad, a_mat, l, u, iters=100, tol=1e-10):
 
     Solves min 0.5 x'Px + q'x  s.t.  Gx <= h  with
     G = [-A; A_finite_upper], h = [-l; u_finite].
+
+    Stops once the duality measure is below `tol` and both residuals below
+    `res_tol` (the residuals floor at f64 rounding of O(100 N) forces, so
+    they cannot be held to `tol`), or when the Newton system stops being
+    numerically positive definite; the certificate then decides.
     """
     finite_u = u < 1e9
     g_mat = np.vstack([-a_mat, a_mat[finite_u]])
@@ -36,12 +42,16 @@ def solve_qp_exact(hess, grad, a_mat, l, u, iters=100, tol=1e-10):
         r_dual = hess @ x + grad + g_mat.T @ z
         r_pri = gx + s - h_vec
         mu = (s @ z) / m
-        if max(np.abs(r_dual).max(), np.abs(r_pri).max(), mu) < tol:
+        if mu < tol and max(np.abs(r_dual).max(),
+                            np.abs(r_pri).max()) < res_tol:
             break
         # predictor-corrector
         w = z / s
         k = hess + g_mat.T @ (w[:, None] * g_mat)
-        k_chol = scipy.linalg.cho_factor(k)
+        try:
+            k_chol = scipy.linalg.cho_factor(k)
+        except np.linalg.LinAlgError:
+            break     # w spans beyond f64 near the optimum
 
         def newton(sigma_mu, corr):
             # r_c = S Z e - sigma*mu*e + corr;  dz = (-r_c - Z ds)/S

@@ -1,6 +1,6 @@
 """Host-side timing utilities.
 
-The TPU-native counterpart of the reference's nanosecond Timer
+The counterpart of the reference's nanosecond Timer
 (src/Utilities/Timer.h:9-51): a monotonic scoped timer for the host control
 loop, plus latency-percentile accounting for real-time-budget reporting
 (p50/p99 against the ~30 ms MPC / 2 ms tick budget)."""

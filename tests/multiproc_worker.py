@@ -2,7 +2,7 @@
 
 Each of N processes owns `devs_per_proc` virtual CPU devices; together they
 form one global mesh (cross-process collectives ride Gloo — the CPU stand-in
-for ICI/DCN, SURVEY.md §4 item 5). The worker solves its shard of a global
+for cross-host collectives, SURVEY.md §4 item 5). The worker solves its shard of a global
 MPC batch through the sharded fast path, checks it against a local
 single-process solve of the same lanes, checks the psum'd statistic against
 the global value, and writes a JSON report.

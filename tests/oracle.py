@@ -162,3 +162,28 @@ def solve_mpc_qp_exact(hess, grad, gait, mu, f_max, big=5e10):
     x = np.zeros(n)
     x[keep_vars] = x_red
     return x
+
+
+def mpc_step_forces(cfg, inp):
+    """Float64 optimum of one scenario's MPC QP, (h,4,3) forces: the
+    reference formation (ct_ss_mats -> c2qp -> qp_cost) and the exact
+    solve, for one scenario of `mpc/pipeline.random_inputs` (arrays
+    without the batch axis; traj is (h,13))."""
+    h = np.asarray(inp.gait_table).shape[0]
+    a_ct, b_ct = ct_ss_mats(
+        np.array(cfg.mpc.inertia), cfg.mpc.mass, np.asarray(inp.r_feet),
+        float(inp.rpy[2]), float(inp.x_drag),
+    )
+    _, _, a_qp, b_qp = c2qp(a_ct, b_ct, cfg.dt_mpc, h)
+    x0 = np.concatenate([
+        np.asarray(inp.rpy), np.asarray(inp.position),
+        np.asarray(inp.omega_world), np.asarray(inp.v_world),
+        [-cfg.mpc.gravity],
+    ])
+    hess, grad = qp_cost(
+        a_qp, b_qp, np.array(cfg.mpc.weights), cfg.mpc.alpha, x0,
+        np.asarray(inp.traj)[:, :12], h,
+    )
+    x = solve_mpc_qp_exact(hess, grad, np.asarray(inp.gait_table),
+                           cfg.mpc.mu, cfg.mpc.f_max)
+    return x.reshape(h, 4, 3)

@@ -1,8 +1,8 @@
 """The closed-loop batched MPC fast path (`mpc_update_batched`) must agree
 with the per-lane reference path (`vmap(mpc_update)`): same formation, same
-ADMM splitting, different execution schedule (batch-explicit solver that
-dispatches to the Pallas kernels on TPU). On CPU both run pure-XLA, and the
-polish drives both to the same active set, so forces agree tightly."""
+ADMM splitting, different execution schedule (batch-explicit solver vs
+per-scenario solver under vmap). The polish drives both to the same active
+set, so forces agree tightly."""
 
 import jax
 import jax.numpy as jnp

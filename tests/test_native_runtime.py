@@ -102,3 +102,20 @@ def test_rate_limiter(controller):
         anchor = lib.quadruped_rt_sleep_until_next(anchor)
     elapsed = lib.quadruped_rt_now_ns() - t0
     assert elapsed >= 4 * 2_000_000  # ~5 periods at 500 Hz, allow slack
+
+
+def test_callback_failure_is_raised_not_swallowed(controller, monkeypatch):
+    """An exception inside the C callback cannot cross the C frames; the
+    Python wrapper re-raises it instead of returning stale torques."""
+    sim = engine.sim_init(CFG, Terrain.plane())
+    imu, leg = _sensor_arrays(CFG, sim)
+
+    def boom(*a, **k):
+        raise ValueError("step failed")
+
+    monkeypatch.setattr(controller, "_step_fn", boom)
+    with pytest.raises(RuntimeError, match="callback failed") as e:
+        controller.torque_calculator(imu, leg)
+    assert isinstance(e.value.__cause__, ValueError)
+    monkeypatch.undo()
+    assert np.isfinite(controller.torque_calculator(imu, leg)).all()

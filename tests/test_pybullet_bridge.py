@@ -1,6 +1,7 @@
 """Executed coverage for the PyBullet bridge (sim/pybullet_bridge.py).
 
-pybullet is not installed in the TPU container, so the bridge's logic —
+pybullet is an optional dependency that the test environment lacks, so
+the bridge's logic —
 terrain construction calls, the reference reset/stand-up sequence
 (walking_simulation.py:170-198), the exact imu[10]/leg[24] sensor packing
 (:521-573) and the torque-application call (:239-244) — is exercised here
